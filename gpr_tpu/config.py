@@ -1,7 +1,7 @@
 """Global configuration.
 
 Mirrors the reference's two mutable library globals ``cholesky_jitter`` and
-``debug`` (``lib/utils.ml:34-35``) plus TPU-specific knobs the reference has no
+``debug`` (``lib/utils.ml:34-35``) plus accelerator knobs the reference has no
 analogue for (dtype policy, matmul precision).
 
 All engine functions take explicit keyword overrides; these globals are only
@@ -22,26 +22,27 @@ class Config:
     cholesky_jitter: float = 1e-6
     # Debug-gated invariant checks (reference: lib/utils.ml:34,118-192).
     debug: bool = False
-    # Matmul precision for f32 inputs on TPU.  HIGHEST = f32 accumulation via
-    # multiple bf16 passes; matters for the 1e-6 parity bar at large n.
+    # Matmul precision for f32 inputs.  On an H100 (chip_smoke.py's precision
+    # map) HIGHEST runs true f32 products (~1e-6 relative on a 4096^2 GEMM);
+    # HIGH and DEFAULT both run TF32 (~3e-4).  Matters for the 1e-6 parity
+    # bar at large n.
     # NOTE: read at trace time — changing it does not invalidate already-
     # compiled jit caches; set it before building jitted objectives.
     matmul_precision: str = "highest"
     # Precision for the whitened ACCUMULATION GEMMs in the streaming
     # evidence (gram += a'a, u_vec += v'(is*y)).  None (default) = follow
     # matmul_precision, so a user who asks for HIGHEST gets it everywhere.
-    # Measured opt-in (probes/r4_tpu_error_split.py, 1M x 8 m=300 SeIso on
-    # v5e): 'high' here under matmul_precision='highest' moves the evidence
-    # by exactly 0.0 nats — the whitened products are O(1) and
-    # well-conditioned at that shape — while buying back ~16% of forward
-    # GEMM time; the kernel sqdist and whitening GEMMs carry ~250 of the
-    # ~290-nat f32-HIGH error.  Validated at the bench shape only; a
-    # low-noise problem (tiny sigma2) scales the whitened rows by 1/sqrt(s),
-    # so this stays an explicit dial rather than the library default.
+    # An opt-in: the whitened products are O(1) and well-conditioned at
+    # the 1M x 8, m=300 SeIso benchmark shape, where a lower precision here
+    # moved the evidence by 0.0 nats in an earlier measurement, while the
+    # kernel sqdist and whitening GEMMs carry nearly all of the reduced-
+    # precision error.  Not measured on the H100.  A low-noise problem
+    # (tiny sigma2) scales the whitened rows by 1/sqrt(s), so this stays
+    # an explicit dial rather than the library default.
     acc_precision: str | None = None
     # Streaming-backward GEMM sites to demote to single-pass (DEFAULT)
-    # precision, from {"ui_bar", "vg", "knm_bar"} (stream_grad.py).  Probed
-    # per site by probes/r4_bwd_demote.py; default () = no demotion.  Like
+    # precision, from {"ui_bar", "vg", "knm_bar"} (stream_grad.py).  Default
+    # () = no demotion.  Like
     # every precision knob this is read at trace time.  Applies to the
     # streaming custom-VJP backward only (grad_impl='cv', the default path);
     # the 'vg' site exists only under grad_variant='ug' — other variants
@@ -49,13 +50,13 @@ class Config:
     # trace time (stream_grad.site_mm).
     bwd_demote_sites: tuple = ()
     # 'gemm' | 'direct': pairwise squared-distance assembly
-    # (kernels/base.py:sqdist).  'gemm' is |a|^2 - 2ab + |b|^2 on the MXU —
+    # (kernels/base.py:sqdist).  'gemm' is |a|^2 - 2ab + |b|^2 as one GEMM —
     # the fast path, but the f32 assembly of ~|terms|-magnitude pieces
     # leaves d2 errors of a few ulp(|a|^2+|b|^2), i.e. up to ~40 f32 ulps
     # on near-pair kernel ENTRIES; measured as the largest accurate-mode
     # evidence error term at 1M x 8 m=300 (+2.1 of the +2.9-nat sum-log-s
-    # stage total, probes/r5 tile diff).  'direct' computes
-    # sum_k (a_k - b_k)^2 elementwise on the VPU — no cancellation,
+    # stage total, in an earlier tile-by-tile comparison).  'direct'
+    # computes sum_k (a_k - b_k)^2 elementwise — no cancellation,
     # ~1-ulp entries — for the accurate/parity path.  Read at trace time.
     sqdist_impl: str = "gemm"
     # 'qr' | 'chol' | 'auto': how to factor B = Km + Knm' D^-1 Knm.

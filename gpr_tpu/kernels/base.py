@@ -66,15 +66,15 @@ class KernelFamily(Protocol):
 def sqdist(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Pairwise squared distances between rows of a (n,d) and b (m,d).
 
-    The expansion |a|^2 - 2 a.b + |b|^2 puts the O(n m d) work on the MXU
-    (one GEMM) instead of the reference's scalar triple loop
+    The expansion |a|^2 - 2 a.b + |b|^2 puts the O(n m d) work in one
+    GEMM instead of the reference's scalar triple loop
     (lib/cov_se_iso.ml:56-72,128-144).  Clamped at zero against rounding.
 
     ``config.sqdist_impl = "direct"`` switches to the elementwise
     sum_k (a_k - b_k)^2 form: all-positive summands, so d2 carries ~1-ulp
     relative error instead of a few ulps of the |a|^2 + |b|^2 term
     magnitude — the measured dominant accurate-mode kernel-entry error
-    (config.py note).  VPU-bound; for the parity/accurate path.
+    (config.py note).  Elementwise-bound; for the parity/accurate path.
     """
     from ..config import config
     from ..numerics.linalg import matmul
@@ -86,9 +86,10 @@ def sqdist(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
         return jnp.maximum(d2, 0.0)
     a2 = jnp.sum(jnp.square(a), axis=-1)
     b2 = jnp.sum(jnp.square(b), axis=-1)
-    # configured precision, NOT the backend default: on TPU the default
-    # lowers f32 dots to one bf16 pass, and a bf16 d2 feeds exp() — measured
-    # as the dominant term of the f32 evidence bias at n=1e6 (NEXT.md)
+    # configured precision, NOT the backend default: on the GPU the default
+    # runs f32 dots in TF32 (chip_smoke.py's precision map), and d2 feeds
+    # exp() — a reduced-precision d2 was the dominant term of the f32
+    # evidence bias at n=1e6 (NEXT.md at commit b587de6)
     d2 = a2[:, None] - 2.0 * matmul(a, b.T) + b2[None, :]
     return jnp.maximum(d2, 0.0)
 
@@ -106,8 +107,8 @@ def sqdist_cotangent_reduce(c, X, Z):
 
     Shared by the hand-fused kernel pullbacks (k_cross_vjp): one elementwise
     pass over the tile plus this GEMM replaces the several (bs, m)
-    intermediates the AD pullback materializes (~4 ms/iter saved at 1M x 8,
-    m=300 on v5e).
+    intermediates the AD pullback materializes (the saving is not measured
+    on the H100).
     """
     from ..numerics.linalg import matmul
 

@@ -9,7 +9,7 @@ with one shared period p and lengthscale ell (hyperparameters log_ell,
 log_sf2, log_period — all learnable by evidence ascent like every other
 family).
 
-TPU-first evaluation: the naive form needs per-dimension differences — an
+GEMM-first evaluation: the naive form needs per-dimension differences — an
 (n, m, d) tensor that scales terribly.  Instead use
 sin^2(t/2) = (1 - cos t)/2 and the angle-difference identity, so
 
@@ -18,7 +18,7 @@ sin^2(t/2) = (1 - cos t)/2 and the angle-difference identity, so
 
 i.e. ONE (n, 2d) x (2d, m) GEMM on the [C | S] feature maps — the same
 one-GEMM-per-tile structure as ``sqdist`` for the SE families, so the
-kernel rides the MXU and composes with every engine path (dense,
+kernel runs as a GEMM and composes with every engine path (dense,
 streaming, sharded, online, multitask, classification) at any n.
 Gradients flow by AD through the feature GEMM (no hand VJP needed: the
 pullback of a GEMM is two GEMMs, which is already the fused form).

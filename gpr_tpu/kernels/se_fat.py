@@ -132,11 +132,10 @@ class SeFat:
         # Multiscale cross as ONE augmented GEMM:
         #   quad[n, c] = sum_i (p_ni - z_ci)^2 / u_ci + sum_i log u_ci
         #             = [p^2 | p | 1] @ [iu | -2 z*iu | sum(z^2 iu + log u)]'
-        # The TPU MXU pads the contraction axis to 128 lanes either way, so
-        # two separate d-wide GEMMs cost twice this single (2d+1)-wide one —
-        # measured on the flagship streaming path (se_fat was 1.19x se_iso
-        # per iteration; this runs in the forward AND the backward's
-        # recompute).
+        # A d-wide contraction is padded to the matrix unit's tile either
+        # way, so two separate d-wide GEMMs cost about twice this single
+        # (2d+1)-wide one; this runs in the forward AND the backward's
+        # recompute.
         u = _multiscales(params)  # (m, d)
         iu = 1.0 / u
         ones = jnp.ones((p.shape[0], 1), p.dtype)

@@ -20,12 +20,12 @@ composition is just another kernel family.
 The reference has no multi-output support (one ``Spec`` per engine,
 lib/interfaces.ml); this is an extension, inventoried in COMPONENTS.md.
 
-TPU-first details:
+Design details:
 
 * The (n, m) cross block is two GEMMs against one-hot task selectors
   (K = O1 B O2') — no gathers anywhere, because a gather's BACKWARD is
-  a scatter-add over n rows that TPUs serialize (see ``_cross_ids`` for
-  the measured 1.6x end-to-end cost).  The hot path is MXU work.
+  a scatter-add over n rows (see ``_cross_ids``).  The hot path is GEMM
+  work.
 * Task indices are recovered by round+clip, so the task coordinate of
   the shared inducing set Z receives ZERO gradient (integer gather
   indices carry no tangent) and inducing points keep the task they were
@@ -99,12 +99,11 @@ class _Task:
         return ids.astype(jnp.int32)
 
     def _cross_ids(self, params, t1, t2):
-        """K = O1 B O2' with one-hot task selectors — two GEMMs on the
-        MXU.  The obvious alternative (gather W rows, equality-mask the
+        """K = O1 B O2' with one-hot task selectors — two GEMMs.  The
+        obvious alternative (gather W rows, equality-mask the
         kappa term) is numerically identical but its BACKWARD is a
-        scatter-add over n rows, which TPUs serialize: measured 150 vs
-        92 ms/iter for the full ICM evidence+grad at 1M x 8, m=300, T=4
-        on v5e (probes/r4_icm_tpu.py; same-session se_iso baseline 65-78).
+        scatter-add over n rows, which serializes on some accelerators (not
+        measured on the H100, where XLA lowers scatters to atomics).
         One-hot keeps forward and backward as dense (n, T)-shaped GEMM
         work for the realistic small-T regime.
         """

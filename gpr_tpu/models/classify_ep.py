@@ -7,7 +7,7 @@ a PROBIT likelihood Phi(y f) — the likelihood EP handles in closed form
 among Gaussian approximations for binary classification (GPML section
 3.7.3's comparisons); the reference implementation being rebuilt here is
 regression-only (doc/manual/gpr_manual.tex:82), so the whole family is
-an extension, designed TPU-first:
+an extension, designed for the accelerator:
 
 * **Parallel EP with damping** instead of GPML Algorithm 3.3's sequential
   site loop: every sweep updates ALL sites from the current marginals —
@@ -107,7 +107,7 @@ def ep_sweeps(
 
         NOT via Sigma = K - K P K: for well-determined rows diag(KPK)
         cancels against diag(K) below the f32 GEMM noise floor (measured
-        on v5e at n=1e6: 135k rows came out NEGATIVE on sweep 1, the
+        in f32 at n=1e6: 135k rows came out NEGATIVE on sweep 1, the
         clipped variances made the cavities absurdly confident, and the
         site iteration blew up to NaN by sweep 3).  A second Woodbury
         around K = VV' + D gives Sigma as a SUM OF POSITIVE terms

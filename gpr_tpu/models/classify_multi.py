@@ -39,7 +39,7 @@ VJP, instead of retraversing newton_iters remat'ed coupled sweeps);
 grad_impl="unroll" keeps the differentiable fixed-step scan.
 
 Cost per Newton step: O(C) (n, m) GEMMs for the per-class factors plus
-O(C^2) weighted m x m Grams for the coupling block matrix — all MXU work;
+O(C^2) weighted m x m Grams for the coupling block matrix — all GEMM work;
 C is small (classes), m is the inducing count.
 """
 

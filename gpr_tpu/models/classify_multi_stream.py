@@ -4,7 +4,7 @@ The materialized multi-class classifier (models/classify_multi.py) holds
 V at (n, m) — the same HBM bound the binary classifier had before
 models/classify_stream.py.  Here every V-involving product in the softmax
 Newton step runs as a lax.scan over row blocks that recomputes the Knm
-tile on chip, so resident memory is O(n C + block x m) at any n.
+tile, so resident memory is O(n C + block x m) at any n.
 
 The coupled step packs into SIX sweeps, the same count as the binary
 stream (each: one kernel tile eval + O(C) block GEMMs):
@@ -86,7 +86,7 @@ def _row_parts(f, y1h, d, maskb):
 def _gram_contrib(v_i, q_i, qbar_inv_i, n_c):
     """One block's contribution to the per-class Grams P_c (C, m, m) and
     the coupling Grams W_cc' (n_pairs, m, m) — a static unroll over the
-    (small) class count, each term one weighted Gram on the MXU."""
+    (small) class count, each term one weighted Gram GEMM."""
     p = jnp.stack(
         [matmul((v_i * q_i[:, c : c + 1]).T, v_i) for c in range(n_c)]
     )

@@ -1,10 +1,10 @@
 """Streaming (blockwise) Laplace classification: unbounded n.
 
 The materialized classifier (models/classify.py) holds V = Knm U^-1 at
-(n, m) — 1.2 GB f32 at the 1M x 300 bench shape, which bounds n at ~3e6
-f32 on a v5e chip.  Here V never materializes: every V-involving product
+(n, m) — 1.2 GB f32 at the 1M x 300 bench shape, which bounds n by device
+memory (~3e6 rows on a 16 GB card).  Here V never materializes: every V-involving product
 in the Newton step runs as a lax.scan over row blocks that recomputes the
-Knm tile on chip (the same tile-and-discard structure as the regression
+Knm tile (the same tile-and-discard structure as the regression
 streaming evidence, models/streaming.py), so resident memory is a handful
 of (n,) vectors plus one (block, m) tile.
 

@@ -1,6 +1,6 @@
 """Sparse GP engine: FITC / FIC, standard and variational (Titsias-style).
 
-TPU-native rebuild of the evaluation core of lib/fitc_gp.ml (:29-851).  The
+JAX rebuild of the evaluation core of lib/fitc_gp.ml (:29-851).  The
 reference's functor instantiation ``Make_FITC(Cov)`` becomes plain function
 calls parameterized by a kernel *family* (static) and its params PyTree
 (traced); every step is jit-compatible and differentiable end to end.
@@ -23,7 +23,7 @@ Math (identical to the reference and to the independent oracle test/oct.m):
 Factorization of B: the reference QR-factors the stacked (n+m, m) matrix
 [diag(sqrt is) Knm; U] (fitc_gp.ml:168-203, Foster 2009) and never forms B.
 With the sign convention diag(R) > 0, that R *is* chol(B), so both paths feed
-identical downstream formulas; 'chol' avoids the tall QR (one MXU syrk +
+identical downstream formulas; 'chol' avoids the tall QR (one syrk GEMM +
 an m^3 factorization) and is the path that shards over the data axis, 'qr'
 is the maximally stable choice for ill-conditioned Km.  See
 numerics.linalg.tsqr_r for the sharded stable middle ground.
@@ -121,7 +121,7 @@ def choose_kmeans_inputs(
     the data is clustered (tests/test_model_misc.py shows the evidence
     gain on clustered data).
 
-    TPU-native Lloyd iterations under one jit: assignment is the sqdist
+    Lloyd iterations under one jit: assignment is the sqdist
     GEMM + a row argmin; the update contracts one-hot assignments against
     X (two GEMMs — no scatter, same rationale as kernels/task.py).  Empty
     clusters keep their previous centroid.  ``subsample`` bounds the

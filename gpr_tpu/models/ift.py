@@ -8,8 +8,9 @@ maximizing the Laplace evidence at the Newton mode f_hat of
 
 Through round 4 the hyper gradient came from jax.grad THROUGH the
 unrolled Newton iteration (8-20 remat'ed sweeps): correct at a converged
-mode, but the reverse pass retraverses every sweep — measured 1.17-2.77
-s/iter at the 1M bench shape vs 33 ms for regression (BENCH_r04).
+mode, but the reverse pass retraverses every sweep, 35-85x the cost of a
+regression evidence+gradient at the 1M bench shape (BENCH_r04.json at
+commit b587de6).
 
 This module replaces that with the standard implicit gradient
 (GPML section 5.5.1, Rasmussen & Williams 2006): the mode satisfies the

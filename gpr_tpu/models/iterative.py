@@ -1,15 +1,15 @@
 """Iterative exact GP: Nyström/FITC-preconditioned conjugate gradients.
 
-``models/exact.py`` ends at the dense-Cholesky ceiling: K is O(n^2) HBM and
-XLA's TPU ``potrf`` sustains only ~5 TF/s (measured, probes/r4_exact_tpu.py),
-so n ~ 20k is the practical single-chip limit.  This module extends EXACT
-inference past that point the TPU way:
+``models/exact.py`` ends at the dense-Cholesky ceiling: K is O(n^2) device memory
+and ``potrf`` is a serial panel factorization, so n ~ 20k is the practical
+single-device limit.  This module extends EXACT inference past that point
+with GEMMs:
 
   * ``A v = (K + sigma2 I) v`` is computed in row blocks by a ``lax.scan``
-    that forms each ``K(X_block, X)`` tile on chip with one ``k_cross`` GEMM
+    that forms each ``K(X_block, X)`` tile with one ``k_cross`` GEMM
     and folds it into the product immediately — K is never materialized, so
     memory is O(n * block) transient and O(n * rhs) persistent, and every
-    flop is an MXU GEMM (the op the hardware is built for, unlike potrf's
+    flop is a GEMM (the op the hardware is built for, unlike potrf's
     serial panel factorization).
   * The solves use batched preconditioned CG.  The preconditioner is the
     FITC approximation itself — P = D + V V' with V = Knm U^-1 (whitened
@@ -65,7 +65,7 @@ def kernel_matvec(
     """(K(X, X) + sigma2 I) @ V without materializing K.
 
     V may be (n,) or (n, r).  Each scan step forms one (block, n) tile with
-    ``k_cross`` and contracts it against V on the MXU.  The diagonal is
+    ``k_cross`` and contracts it against V in a GEMM.  The diagonal is
     corrected to ``k_diag`` (the model's prior variances) so the operator
     matches ``exact.calc_exact``'s dense A for every family, including those
     whose pointwise variance differs from the cross form (se_fat
@@ -82,8 +82,7 @@ def kernel_matvec(
 
     # remat: reverse mode otherwise saves every (block, n) tile — at
     # n=100k block=8192 that is a 42.6 GB stacked residual and the
-    # evidence_grads_iter jit fails AOT allocation (measured,
-    # probes/r5_iterative_tpu.py);
+    # evidence_grads_iter jit fails AOT allocation (measured);
     # recomputing the tile in the backward is the same trade the
     # streaming engine makes everywhere
     _, out = lax.scan(jax.checkpoint(step), None, xb)
@@ -168,7 +167,7 @@ def pcg(
 
     Solves ``A x = b`` for every column of ``b`` ((n,) or (n, r)) in one
     fused iteration (each step is ONE blocked matvec over all columns — the
-    batching is what makes CG MXU-friendly: rank-r GEMMs instead of r
+    batching is what makes CG GEMM-friendly: rank-r GEMMs instead of r
     matvecs).  Stops when every column's relative residual is below ``tol``
     or at ``max_iter``.  Returns ``(x, info)`` with
     ``info = {"iters": k, "relres": (r,)}``.
@@ -182,9 +181,8 @@ def pcg(
     that-many iterations the recursive residual is recomputed as
     ``b - matvec(x)``.  In f32 the recursively-updated r drifts from the
     true residual once the per-matvec rounding noise (~lambda_max * eps)
-    reaches the residual scale — measured at n >= 50k on TPU as "relres"
-    climbing past 1 while the true error stayed bounded
-    (probes/r4_iterative_tpu.py pre-fix vs r5_iterative_tpu.py).  The
+    reaches the residual scale — measured at n >= 50k as "relres"
+    climbing past 1 while the true error stayed bounded.  The
     reported final relres is always recomputed from the TRUE residual
     (one extra matvec), so convergence claims are honest at any precision.
     """

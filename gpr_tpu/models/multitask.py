@@ -1,10 +1,10 @@
 """Batched multi-task GPs: B independent sparse GPs in one jitted program.
 
 No reference counterpart (the reference is strictly one model per process);
-this is the TPU-natural extension: because the whole engine is pure
+this is the accelerator-natural extension: because the whole engine is pure
 functions over PyTrees, ``jax.vmap`` lifts evidence, gradients, training
 steps, and prediction over a leading task axis — the per-task m x m
-factorizations batch onto the MXU (XLA batches Cholesky/triangular solves),
+factorizations batch into single kernels (XLA batches Cholesky/triangular solves),
 and one device dispatch trains B models.
 
 Typical uses: per-output GPs of a multi-output problem, per-segment models,
@@ -86,7 +86,7 @@ def multi_start(family, X, y, packs_x0, unpack, *, variational=False,
     """Hyperparameter multi-start: gradient-ascend S stacked packed vectors
     on the SAME data in one jitted loop; returns (best_x, all_final_l).
 
-    A pragmatic TPU answer to restart loops: S optimizations cost one batched
+    A pragmatic accelerator answer to restart loops: S optimizations cost one batched
     program, so restarts are nearly free up to memory.
     """
 

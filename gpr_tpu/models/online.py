@@ -2,7 +2,7 @@
 
 The reference sketches an ``Online`` module but ships it commented out
 (lib/fitc_gp.ml:2022-2053 — "add_samples" over a trained model); this is
-the working TPU-native version.  The key structural fact (same one the
+the working JAX version.  The key structural fact (same one the
 streaming evidence exploits): for fixed (kernel params, inducing Z, sigma2)
 the FITC posterior and evidence depend on the data ONLY through the O(m^2)
 sufficient statistics

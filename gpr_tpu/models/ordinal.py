@@ -2,7 +2,7 @@
 Laplace-FITC, with learnable cutpoints.
 
 Completes the likelihood matrix (Bernoulli / binomial / softmax /
-Poisson / negative binomial, NEXT.md) with ordered-category targets
+Poisson / negative binomial) with ordered-category targets
 y in {0..K-1}: a latent GP f and ordered cutpoints
 b_1 < ... < b_{K-1} (parameterized as first-plus-log-increments so the
 ordering is unconditional),

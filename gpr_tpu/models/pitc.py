@@ -3,7 +3,7 @@
 The reference names PITC as future work and never ships it
 (doc/manual/gpr_manual.tex:532-559 "more sophisticated approximation
 methods"; Quinonero-Candela & Rasmussen 2005 taxonomy).  This module
-delivers it TPU-first: PITC generalizes FITC's diagonal train-conditional
+delivers it as GEMMs: PITC generalizes FITC's diagonal train-conditional
 correction to BLOCK-diagonal — within each block of training points the
 exact covariance is kept, so
 
@@ -65,7 +65,7 @@ def pitc_stream_stats(
     """One scan over row blocks accumulating PITC's StreamStats.
 
     Each scan step factors its block conditional
-    S_b = K_bb - V_b V_b' + sigma2 I (a (b, b) Cholesky on chip) and folds
+    S_b = K_bb - V_b V_b' + sigma2 I (a (b, b) Cholesky per tile) and folds
     the block-whitened tile into the same O(m^2) statistics the FITC scan
     produces.  Padded rows decouple exactly: their S rows/columns are
     zeroed and the diagonal set to 1, so the factor is block-trivial there

@@ -65,7 +65,7 @@ def predict_mean_one(family, params, mp: MeanPredictor, x) -> jnp.ndarray:
 
 
 def predict_means(family, params, mp: MeanPredictor, X) -> jnp.ndarray:
-    """Batch means = Ktm coeffs (fitc_gp.ml:415-427), one MXU gemv."""
+    """Batch means = Ktm coeffs (fitc_gp.ml:415-427), one GEMV."""
     return matmul(family.k_cross(params, X, mp.z), mp.coeffs)
 
 

@@ -3,7 +3,7 @@
 The Student-t likelihood is the classic answer to outliers the reference
 cannot give (it is Gaussian-only; gpr_manual.tex:532-559 lists no robust
 variant).  It is NOT log-concave in f, so the fixed-step Newton story of
-the other likelihood families breaks (NEXT.md).  The tractable TPU-native
+the other likelihood families breaks.  The tractable accelerator-friendly
 route is the scale-mixture representation
 
   y_i | f_i, lam_i ~ N(f_i, sigma2 / lam_i),   lam_i ~ Gamma(nu/2, nu/2)
@@ -31,7 +31,7 @@ Gaussian evidence + 0.5 sum(E[log lam] - log lam_hat) - KL(q(lam)||p(lam)))
 — it must increase across E-steps at fixed hypers, which the tests
 assert; it is also the model-selection score for nu.
 
-Identifiability caveat (measured on TPU, probes/robust_tpu.py): FITC's
+Identifiability caveat (measured): FITC's
 per-point diagonal slack r_i = k_ii - q_ii is idiosyncratic PRIOR
 variance, i.e. a competing explanation for an outlier.  lam_hat flags a
 row only when its deviation exceeds what r_i + sigma2 can absorb —

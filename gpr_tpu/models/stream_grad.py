@@ -9,7 +9,7 @@ role the reference's hand-derived gradient code plays against LAPACK
 (lib/fitc_gp.ml:585-756 — ``calc_log_evidence_sigma2`` etc. reuse the
 factored model state instead of redifferentiating).
 
-This module is the TPU analogue: a ``jax.custom_vjp`` whose backward scan
+This module is the JAX analogue: a ``jax.custom_vjp`` whose backward scan
 
 * symmetrizes the Gram cotangent ONCE outside the scan — the statistic is a
   sum over tiles, so every tile sees the same (m, m) cotangent, and
@@ -48,10 +48,11 @@ def _acc_dtype():
 def _two_sum(hi, lo, x):
     """Error-free accumulation (Knuth two-sum): (hi, lo) += x with the
     rounding error of the add captured in lo.  In f32 this keeps a length-T
-    reduction accurate to ~1 ulp instead of ~sqrt(T) ulps — the TPU-native
-    substitute for the f64 accumulators the x64 path gets for free.  XLA
-    does not reassociate floating-point adds, so the cancellation survives
-    compilation."""
+    reduction accurate to ~1 ulp instead of ~sqrt(T) ulps — the f32
+    substitute for the f64 accumulators the x64 path gets.  XLA does not
+    reassociate floating-point adds, so the cancellation survives
+    compilation (chip_smoke.py's compensated-sum phase checks this on the
+    GPU)."""
     s = hi + x
     bp = s - hi
     err = (hi - (s - bp)) + (x - bp)
@@ -62,11 +63,11 @@ def _forward_scan(family, params, z, u_inv, sigma2, xb, yb, maskb, unroll):
     """Plain forward statistics scan (same math as streaming.stream_stats's
     body; no remat wrapper — custom_vjp detaches AD so nothing is stored).
 
-    When accumulators are f32 (x64 off — the TPU configuration) every carry
-    is a compensated (hi, lo) pair, folded to a single float at the end:
-    per-tile GEMM rounding is unavoidable, but the cross-tile accumulation
-    noise that set the f32 evidence/gradient noise floor (NEXT.md round-1)
-    is eliminated.
+    When accumulators are f32 (x64 off) every carry is a compensated
+    (hi, lo) pair, folded to a single float at the end: per-tile GEMM
+    rounding is unavoidable, but the cross-tile accumulation noise that set
+    the f32 evidence/gradient noise floor (NEXT.md round-1, at commit
+    b587de6) is eliminated.
     """
     m = z.shape[0]
     acc = _acc_dtype()
@@ -75,7 +76,8 @@ def _forward_scan(family, params, z, u_inv, sigma2, xb, yb, maskb, unroll):
     def body(carry, blk):
         x_b, y_b, mask_b = blk
         # bf16 storage mode: X/y may be stored at half width; compute in the
-        # model dtype (tiles upcast on chip, so HBM holds the narrow copy)
+        # model dtype (tiles upcast on the device, so HBM holds the narrow
+        # copy)
         x_b = x_b.astype(z.dtype)
         y_b = y_b.astype(z.dtype)
         mask_b = mask_b.astype(z.dtype)
@@ -113,31 +115,7 @@ def _forward_scan(family, params, z, u_inv, sigma2, xb, yb, maskb, unroll):
     return tuple(hi + lo if comp else hi for hi, lo in out)
 
 
-def _forward_pallas(family, params, z, u_inv, sigma2, xb, yb, maskb,
-                    interpret):
-    """Fused Pallas forward (ops/fused_stats.py) over the pre-blocked data.
-    se_iso only; f32 compute with in-VMEM accumulation."""
-    from ..ops.fused_stats import se_iso_stream_stats_fused_acc
-
-    if getattr(family, "name", None) != "se_iso":
-        raise ValueError(
-            f"impl='pallas' supports the se_iso kernel only, got "
-            f"{getattr(family, 'name', family)}"
-        )
-    d = xb.shape[-1]
-    # VMEM ceiling: the (B, m_pad) f32 intermediates (+ the bf16-split
-    # copies of the 3-pass dots) + U^-1 must fit in ~16 MB; blocks beyond
-    # 1024 rows fail Mosaic allocation at m ~ 300 (measured), so the kernel
-    # re-tiles internally regardless of the scan-level block size.
-    return se_iso_stream_stats_fused_acc(
-        params.log_ell, params.log_sf2, z, u_inv, sigma2,
-        xb.reshape(-1, d), yb.reshape(-1), maskb.reshape(-1),
-        block_size=min(xb.shape[1], 1024), interpret=interpret,
-    )
-
-
 def make_stream_stats_cv(family, unroll: int = 1, bwd_precision=None,
-                         fwd_impl: str = "scan", interpret: bool = False,
                          bwd_variant: str = "base"):
     """custom_vjp'd (params, z, u_inv, sigma2, xb, yb, maskb) -> 6 stats.
 
@@ -146,16 +124,17 @@ def make_stream_stats_cv(family, unroll: int = 1, bwd_precision=None,
     EXACT in the scan backward variants (it rides the V u-bar product the
     is-cotangent already needs — the warped-GP path differentiates the
     evidence w.r.t. the targets); X/mask cotangents are structural zeros
-    in every custom variant, and the "pallas"/"nok" variants zero the y
+    in every custom variant, and the "nok" variant zeroes the y
     cotangent too — use grad_impl="ad" to differentiate w.r.t. X, and a
     scan variant (default) for d/dy.
 
     ``bwd_precision`` (a jax.lax.Precision or None) applies to the backward
-    contraction GEMMs only: on TPU, ``DEFAULT`` runs them in one bf16 MXU
-    pass instead of the three passes of ``HIGHEST``-class f32 emulation —
-    ~3x the GEMM throughput for ~1e-3 relative gradient error, which a
-    noise-tolerant line search absorbs (the evidence VALUE keeps full
-    precision either way).  None inherits the global matmul precision.
+    contraction GEMMs only: a lower precision than the forward's trades
+    gradient accuracy for GEMM throughput, which a noise-tolerant line
+    search absorbs (the evidence VALUE keeps full precision either way).
+    What each precision name runs as on the GPU is printed by
+    chip_smoke.py's precision-map phase.  None inherits the global matmul
+    precision.
 
     ``bwd_variant`` restructures the backward tile (same math, different
     schedules; an explicit argument only — probes pass it through
@@ -164,38 +143,22 @@ def make_stream_stats_cv(family, unroll: int = 1, bwd_precision=None,
       * "ug"    — vg = knm (U^-1 (G-bar+G-bar')): both GEMMs read knm, no
                   serial dependency
       * "stack" — one (B, m) x (m, 2m) GEMM against [U^-1 | U^-1 gsym]:
-                  fewer, larger MXU calls and one shared knm read
+                  fewer, larger GEMM calls and one shared knm read
       * "nok"   — TIMING PROBE ONLY: skips the kernel pullback (returns
                   zero params/z cotangents) to attribute its cost share
-      * "pallas" — fused backward tile (ops/fused_stats.py, se_iso only):
-                  the whole reverse chain per tile in VMEM, no (B, m) HBM
-                  round trips; interpret mode off-TPU
     """
-    key = (family, unroll, bwd_precision, fwd_impl, interpret, bwd_variant)
+    key = (family, unroll, bwd_precision, bwd_variant)
     if key in _CACHE:
         return _CACHE[key]
-    if bwd_variant == "pallas" and getattr(family, "name", None) != "se_iso":
-        raise ValueError(
-            f"bwd_variant='pallas' supports the se_iso kernel only, got "
-            f"{getattr(family, 'name', family)}"
-        )
-
-    def fwd_stats(params, z, u_inv, sigma2, xb, yb, maskb):
-        if fwd_impl == "pallas":
-            return _forward_pallas(
-                family, params, z, u_inv, sigma2, xb, yb, maskb, interpret
-            )
-        return _forward_scan(
-            family, params, z, u_inv, sigma2, xb, yb, maskb, unroll
-        )
 
     def bmm(a, b):
         return jnp.matmul(a, b, precision=bwd_precision) \
             if bwd_precision is not None else matmul(a, b)
 
     def site_mm(site, a, b):
-        # per-site demotion to single-pass bf16 (config.bwd_demote_sites,
-        # read at trace time) — probes/r4_bwd_demote.py measures each site.
+        # per-site demotion to DEFAULT precision (config.bwd_demote_sites,
+        # read at trace time; probes/r4_bwd_demote.py at commit b587de6
+        # measured each site).
         # A typo'd site name would otherwise be a silent no-op and any
         # speed/accuracy delta attributed to it would be noise.
         unknown = set(config.bwd_demote_sites) - {"ui_bar", "vg", "knm_bar"}
@@ -211,45 +174,19 @@ def make_stream_stats_cv(family, unroll: int = 1, bwd_precision=None,
 
     @jax.custom_vjp
     def core(params, z, u_inv, sigma2, xb, yb, maskb):
-        return fwd_stats(params, z, u_inv, sigma2, xb, yb, maskb)
+        return _forward_scan(
+            family, params, z, u_inv, sigma2, xb, yb, maskb, unroll
+        )
 
     def fwd(params, z, u_inv, sigma2, xb, yb, maskb):
-        out = fwd_stats(params, z, u_inv, sigma2, xb, yb, maskb)
+        out = _forward_scan(
+            family, params, z, u_inv, sigma2, xb, yb, maskb, unroll
+        )
         return out, (params, z, u_inv, sigma2, xb, yb, maskb)
 
     def bwd(res, cot):
         params, z, u_inv, sigma2, xb, yb, maskb = res
         gbar, ubar, lds_bar, yiy_bar, isr_bar, _nbar = cot
-        if bwd_variant == "pallas":
-            # fused backward tile (ops/fused_stats.py): the whole per-tile
-            # reverse chain in VMEM — no (B, m) HBM round trips.  se_iso
-            # only (guarded at construction).
-            from ..ops.fused_stats import se_iso_stream_bwd_fused
-
-            d = xb.shape[-1]
-            lel_b, lsf_b, z_b, ui_b, s2_b = se_iso_stream_bwd_fused(
-                params.log_ell, params.log_sf2, z, u_inv, sigma2,
-                xb.reshape(-1, d), yb.reshape(-1), maskb.reshape(-1),
-                gbar, ubar, lds_bar, yiy_bar, isr_bar,
-                # 512-row tiles: the backward holds ~6 (B, m) live arrays
-                # plus their bf16-split shadows; 1024 rows at m=300 blows
-                # the 16 MB VMEM scoped limit by ~3 MB (measured)
-                block_size=min(xb.shape[1], 512),
-                interpret=interpret or jax.default_backend() != "tpu",
-            )
-            p_bar = type(params)(
-                log_ell=lel_b.astype(jnp.asarray(params.log_ell).dtype),
-                log_sf2=lsf_b.astype(jnp.asarray(params.log_sf2).dtype),
-            )
-            return (
-                p_bar,
-                z_b.astype(z.dtype),
-                ui_b.astype(u_inv.dtype),
-                s2_b.astype(jnp.asarray(sigma2).dtype),
-                jnp.zeros_like(xb),
-                jnp.zeros_like(yb),
-                jnp.zeros_like(maskb),
-            )
         # compute dtype — NOT xb.dtype: in bf16 storage mode the data is
         # narrower than the model, and truncating the m x m Gram cotangent
         # to bf16 would poison every hyper gradient
@@ -355,7 +292,8 @@ def make_stream_stats_cv(family, unroll: int = 1, bwd_precision=None,
             flat_g = jax.tree.leaves(p_bar_t) + [z_bar_t, ui_bar_t, s2_bar_t]
             if comp:
                 # compensated gradient accumulation: cross-tile rounding is
-                # what set the f32 |grad| noise floor (NEXT.md round-1)
+                # what set the f32 |grad| noise floor (NEXT.md round-1,
+                # at commit b587de6)
                 new = [
                     _two_sum(h, l, g.astype(acc))
                     for (h, l), g in zip(carry, flat_g)

@@ -2,9 +2,9 @@
 
 The reference's evidence walks an explicit n x m cross-covariance three times
 (build Knm, trsm to V, syrk the Gram — fitc_gp.ml:151-229), which at
-n = 10^6, m = 300 means multiple GB of HBM traffic per evaluation.  On TPU the
+n = 10^6, m = 300 means multiple GB of HBM traffic per evaluation.  Here the
 whole computation is a reduction over row blocks: for each block of inputs,
-compute the Knm tile *on chip*, immediately fold it into the m x m Gram
+compute the Knm tile, immediately fold it into the m x m Gram
 statistic, the m-vector Knm' (is * y), and the scalar pieces of l1/l2, and
 discard it.  HBM traffic drops to reading X once (n*d elements) plus O(m^2)
 carry — the blockwise/ring structure SURVEY.md section 5 calls for, expressed
@@ -43,7 +43,7 @@ from .fitc import LOG_2PI, calc_inducing
 
 def _acc_dtype():
     """f64 accumulators when x64 is enabled; plain f32 otherwise (avoids
-    per-op truncation warnings on TPU default config)."""
+    per-op truncation warnings under the default f32 config)."""
     return jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
 
 
@@ -84,14 +84,14 @@ def stream_stats(
     family, params, inducing, sigma2, X, y, *, block_size: int = 8192,
     remat: bool = True, mask=None, unroll: int = 1,
     remat_policy: str = "recompute_all", grad_impl: str = "custom",
-    grad_precision=None, impl: str = "scan", grad_variant: str = "base",
+    grad_precision=None, grad_variant: str = "base",
 ) -> StreamStats:
     """One scan over row blocks accumulating StreamStats.
 
     V tiles are formed as ``knm_tile @ U^-1`` (a GEMM against the
     precomputed inverse Cholesky factor) rather than a per-tile triangular
-    solve — on the MXU a matmul is strictly faster than trsm and U is m x m,
-    so inverting it once is O(m^3) amortized over the whole pass.
+    solve — a GEMM parallelizes where trsm serializes, and U is m x m, so
+    inverting it once is O(m^3) amortized over the whole pass.
 
     ``mask`` (n,) of 0/1 weights lets callers exclude padding rows (the
     sharded path pads globally before splitting across devices).
@@ -108,35 +108,13 @@ def stream_stats(
 
     # Per-row noise (sigma2 of shape (n,)): the heteroskedastic evidence —
     # the Student-t M-step at n >> HBM, or user-supplied measurement
-    # errors.  Streams on the AD path only (the hand-fused VJP and the
-    # Pallas kernel assume a scalar); differentiable w.r.t. the vector.
+    # errors.  Streams on the AD path only (the hand-fused VJP assumes a
+    # scalar); differentiable w.r.t. the vector.
     if jnp.ndim(sigma2) == 1:
-        if impl == "pallas":
-            raise ValueError(
-                "per-row sigma2 streams on impl='scan' only"
-            )
         nzb = _pad_blocks(X, sigma2, mask, block_size)[1]  # y-slot blocking
         grad_impl = "ad"
     else:
         nzb = None
-
-    if impl == "pallas":
-        # fused Pallas forward + hand-VJP backward (differentiable); runs in
-        # interpreter mode off-TPU so CPU CI covers the kernel math
-        from .stream_grad import make_stream_stats_cv
-
-        core = make_stream_stats_cv(
-            family, unroll, grad_precision, fwd_impl="pallas",
-            interpret=jax.default_backend() != "tpu",
-            bwd_variant=grad_variant,
-        )
-        gram, u_vec, lds, yiy, isr, cnt = core(
-            params, inducing.z, u_inv, sigma2, xb, yb, maskb
-        )
-        return StreamStats(
-            gram=gram, u_vec=u_vec, log_det_s=lds, y_is_y=yiy,
-            is_r_sum=isr, n=cnt,
-        )
 
     if grad_impl == "custom":
         from .stream_grad import make_stream_stats_cv
@@ -244,11 +222,11 @@ def _evidence_terms(stats: StreamStats, r_tilde, t, *, variational):
     # quad = y' (S + V V')^-1 y = y_is_y - t't >= 0 mathematically (Woodbury
     # projection).  In f32 (and especially with bf16 accumulation inputs) a
     # near-singular I + G makes t't overshoot y_is_y by cancellation, which
-    # INFLATES the evidence — measured on TPU: a broad-ell L-BFGS probe at
-    # the bench shape read mean-NLL -1.55 where the perfect-fit floor of its
+    # INFLATES the evidence — measured: a broad-ell L-BFGS probe at the
+    # bench shape read mean-NLL -1.55 where the perfect-fit floor of its
     # synthetic is +0.215, and multi-start selection then picked that basin
-    # (driver-captured: BENCH_r04.json fit_restarts line, 4th probe raw-f32
-    # -1.5509 vs rescored_f64 1.1649).  Clamping at the mathematical bound
+    # (BENCH_r04.json at commit b587de6, fit_restarts line, 4th probe
+    # raw-f32 -1.5509 vs rescored_f64 1.1649).  Clamping at the mathematical bound
     # only ever alters values that were already wrong.
     l2 = -0.5 * jnp.maximum(
         stats.y_is_y - jnp.dot(t, t).astype(_acc_dtype()), 0.0
@@ -289,7 +267,6 @@ def streaming_log_evidence(
     remat_policy: str = "recompute_all",
     grad_impl: str = "custom",
     grad_precision=None,
-    impl: str = "scan",
     grad_variant: str = "base",
 ) -> jnp.ndarray:
     """Drop-in replacement for models.fitc.log_evidence at large n.
@@ -302,7 +279,7 @@ def streaming_log_evidence(
     stats = stream_stats(
         family, params, inducing, sigma2, X, y, block_size=block_size,
         unroll=unroll, remat_policy=remat_policy, grad_impl=grad_impl,
-        grad_precision=grad_precision, impl=impl, grad_variant=grad_variant,
+        grad_precision=grad_precision, grad_variant=grad_variant,
     )
     return evidence_from_stats(inducing, stats, variational=variational)
 
@@ -377,8 +354,8 @@ def streaming_coeffs(family, params, z, sigma2, X, y, *, block_size=8192,
 
 
 def predict_means_blocked(family, params, z, coeffs, X, *, block_size=8192):
-    """Streaming batch mean prediction: lax.map over row blocks keeps the
-    Ktm tile on chip (prediction at matmul throughput)."""
+    """Streaming batch mean prediction: lax.map over row blocks bounds the
+    Ktm tile to (block, m) (prediction at matmul throughput)."""
     n = X.shape[0]
     nb = -(-n // block_size)
     pad = nb * block_size - n

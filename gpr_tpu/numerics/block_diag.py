@@ -1,10 +1,10 @@
 """Block-diagonal matrices with blockwise Cholesky / inverse.
 
-TPU-native equivalent of the reference's ``Block_diag`` module
+JAX equivalent of the reference's ``Block_diag`` module
 (lib/block_diag.ml:22-47): where the reference loops LAPACK ``potrf``/``potri``
 over an array of unequal-sized blocks, here equal-sized blocks are stacked on a
 leading axis and factored with one batched (vmapped) Cholesky — the idiomatic
-TPU layout.  Unequal block sizes are supported by padding with identity.
+accelerator layout.  Unequal block sizes are supported by padding with identity.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
-"""Dense numerics core: the TPU-native replacement of the reference's L0/L1.
+"""Dense numerics core: the JAX replacement of the reference's L0/L1.
 
 The reference delegates to Lacaml/LAPACK (``potrf``, ``potri``, ``trtrs``,
 ``geqrf``/``orgqr``, ``trsm``, ``syrk``; see lib/utils.ml:95-113 and
-lib/fitc_gp.ml) — here every op is an XLA primitive that tiles onto the MXU.
+lib/fitc_gp.ml) — here every op is an XLA primitive.
 
 Conventions (differ deliberately from the reference's Fortran layout):
   * inputs are row-major: X has shape (n, d); the feature axis is minor.
@@ -42,12 +42,12 @@ def _precision():
 
 
 def matmul(a, b):
-    """MXU matmul with configured precision."""
+    """matmul at the configured precision (config.matmul_precision)."""
     return jnp.matmul(a, b, precision=_precision())
 
 
 def matmul_acc(a, b):
-    """MXU matmul for whitened-accumulation GEMMs (config.acc_precision).
+    """matmul for whitened-accumulation GEMMs (config.acc_precision).
 
     The streaming evidence's ``gram += a'a`` / ``u_vec += v'(is*y)`` sites
     are measured insensitive to GEMM precision (see config.acc_precision);
@@ -120,7 +120,7 @@ def ichol(chol_u: jnp.ndarray) -> jnp.ndarray:
     """Full inverse of A from its upper Cholesky factor U (A = U^T U).
 
     Reference: ``Utils.ichol`` via LAPACK ``potri`` (lib/utils.ml:110-113).
-    A^-1 = U^-1 U^-T, computed with two triangular solves on the MXU.
+    A^-1 = U^-1 U^-T, computed with two triangular solves.
     """
     eye = jnp.eye(chol_u.shape[-1], dtype=chol_u.dtype)
     u_inv = jax.scipy.linalg.solve_triangular(chol_u, eye, lower=False)
@@ -142,7 +142,7 @@ def rows_sqr_norm(a: jnp.ndarray) -> jnp.ndarray:
 
 
 def syrk(a: jnp.ndarray) -> jnp.ndarray:
-    """A^T A — the Gram matrix, on the MXU."""
+    """A^T A — the Gram matrix."""
     return matmul(a.T, a)
 
 

@@ -29,7 +29,7 @@ class HyperPack:
     learn_sigma2: bool
     # pack-layout options, recorded so a child process (optim/polish.py)
     # can rebuild an identical layout — a mismatch there silently ranked
-    # every rescore candidate as inf (ADVICE r4)
+    # every rescore candidate as inf (ADVICE.md r4 at commit b587de6)
     learn_inducing: bool = True
     fixed: tuple = ()
 

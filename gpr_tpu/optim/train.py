@@ -108,7 +108,7 @@ def make_objective(
 
     The data is threaded through as jit *arguments*, never closure-captured:
     captured arrays lower to embedded constants, which bloats the compiled
-    graph and breaks remote-compile backends at large n.
+    graph (and its compile time) at large n.
 
     ``normalize=True`` optimizes the mean NLL (-l/n): same optimum, but at
     n ~ 10^6 in f32 the total evidence (~1e6) exceeds line-search resolution

@@ -6,7 +6,7 @@ is an m-vector, m x m matrix, or scalar sum over rows, so the iteration
 runs unchanged on row shards with ``lax.psum`` as the reduction hook.
 Collective volume per Newton step: one m x m Gram, four m-vectors, a
 few scalars, plus one scalar psum per line-search bisection — latency-
-bound on ICI; nothing n-sized ever crosses the interconnect.
+bound on the interconnect; nothing n-sized ever crosses the interconnect.
 
 The reference has neither classification nor any distributed code
 (SURVEY.md sections 2.4, 7 non-goals); this is the rebuild's systems

@@ -166,7 +166,8 @@ def dist_whiten_cols(u_j: jnp.ndarray, g_j: jnp.ndarray, axis: str,
     This is what makes the raw (unwhitened) Gram usable where no member may
     hold an m x m matrix: accumulate G as column blocks, whiten here, factor
     I + G~ with :func:`dist_cholesky_upper` — O(m^2/p) per-chip memory end
-    to end (NEXT.md round-2: previously 'structurally blocked').
+    to end (NEXT.md round-2 at commit b587de6: previously 'structurally
+    blocked').
     """
     w_j = dist_solve_lower_cols(u_j, g_j, axis, p)
     t_j = dist_transpose_cols(w_j, axis, p)

@@ -2,13 +2,13 @@
 
 The exact-GP matvec ``(K + sigma2 I) v`` is the textbook thing to shard:
 rows of X (and of every CG vector) live on their shard, and the product's
-cross-shard coupling K(X_local, X_remote) v_remote is computed by an ICI
+cross-shard coupling K(X_local, X_remote) v_remote is computed by an interconnect
 ring — each of the P-1 hops ppermutes one (n/P, d) input block and one
 (n/P, r) vector block to the neighbor and folds one local tile GEMM into
 the accumulator (the same ring pattern as parallel/dist_chol.py).  Nothing
 n x n ever exists anywhere; per-device transient memory is one
 (block, n/P) tile, and the ring traffic per matvec is (P-1)(n/P)(d + r)
-floats riding ICI.
+floats riding the interconnect.
 
 The CG iteration itself is unchanged (models/iterative.pcg with its
 column reductions psum'ed), and the Nystrom/FITC preconditioner shards by

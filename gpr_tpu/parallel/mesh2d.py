@@ -29,8 +29,9 @@ model axis — and shard only the Gram GEMM): unconditionally stable, with a
 reduced TP speedup ceiling of 2x.  With x64 both GEMMs shard.
 
 The m x m factorizations stay replicated — the honest threshold for this
-design is m where m^3 / chip-flops or m^2 memory binds (~3 x 10^4 on v5e);
-distributed block Cholesky is the next step beyond (NEXT.md).
+design is m where m^3 / device flops or m^2 memory binds (~10^4 - 10^5 on
+one card); distributed block Cholesky (parallel/dist_chol.py) is the step
+beyond.
 
 Requires m divisible by the model-axis size.
 """

@@ -5,15 +5,15 @@ is the systems axis the rebuild adds.  The design follows directly from the
 algebra of fitc.calc_model: every global quantity is either per-row (r, s,
 is) or a sum over rows (the m x m Gram statistic, the m-vector Knm'(is y),
 and the scalars of l1/l2), so data parallelism is *exact* — shard X and y on
-a 1-D mesh, accumulate per-shard StreamStats, psum them over ICI, and run the
-O(m^3) epilogue replicated on every chip.  Gradients flow through shard_map
+a 1-D mesh, accumulate per-shard StreamStats, psum them over the interconnect, and run
+the O(m^3) epilogue replicated on every device.  Gradients flow through shard_map
 and psum transposes into the reverse collectives automatically, so one
 jax.value_and_grad of the sharded evidence is the whole distributed training
 step.
 
 Collective volume per evidence+gradient evaluation: one psum of
-(m^2 + m + 4) accumulators — at m = 300 that is ~0.7 MB, i.e. ICI latency,
-not bandwidth, bound.  Nothing n-sized ever crosses the interconnect.
+(m^2 + m + 4) accumulators — at m = 300 that is ~0.7 MB, i.e. interconnect
+latency, not bandwidth, bound.  Nothing n-sized ever crosses the interconnect.
 """
 
 from __future__ import annotations
@@ -92,7 +92,8 @@ def sharded_log_evidence(
     (or at least row-shardable) over ``mesh``; params/z/sigma2 replicate.
 
     Per shard: scan-accumulate StreamStats over local row blocks (the Knm
-    tile never leaves VMEM-scale working sets); then one psum over ICI; then
+    tile stays a (block, m) working set); then one psum over the
+    interconnect; then
     the replicated m^3 epilogue.  Wrap in jax.value_and_grad for training.
     """
     if mask is None:
@@ -136,7 +137,7 @@ def sharded_log_evidence_tsqr(
     (fitc.py factorization='qr'); a literal (n+m) x m QR does not shard.  The
     TSQR form does: each shard QR-factors its local block of
     A1 = diag(sqrt is) Knm, the m x m R factors are all-gathered (p m^2
-    floats over ICI), and one small QR of the stacked [R_1; ...; R_p; U]
+    floats over the interconnect), and one small QR of the stacked [R_1; ...; R_p; U]
     yields the same R as the global stacked QR — normal equations are never
     formed, preserving the conditioning argument (SURVEY.md section 5, last
     bullet).  Costs one materialized (n/p, m) block per shard; use
@@ -620,7 +621,7 @@ def fit_sharded(
     """Multi-chip training without host round trips: the chunked device
     L-BFGS (optim.lbfgs_device) over the n-sharded evidence.  Every
     line-search probe runs the distributed evidence+gradient (one psum of
-    ~m^2 accumulators over ICI) with the optimizer state resident on
+    ~m^2 accumulators over the interconnect) with the optimizer state resident on
     device; the host sees one scalar check per ``dispatch_iters``
     iterations.
 

@@ -1,7 +1,7 @@
 """PyTree dataclass helpers.
 
 The reference library (mmottl/gpr) organises its engine as OCaml functors over
-covariance-spec modules (``lib/interfaces.ml``).  The TPU-native equivalent is
+covariance-spec modules (``lib/interfaces.ml``).  The JAX equivalent is
 parameter PyTrees flowing through pure, jit-compiled functions.  This module
 provides the small amount of machinery for that: a frozen-dataclass decorator
 that registers with JAX, and utilities to ravel a *selected subset* of a

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import sys
 import time
 
@@ -21,6 +22,25 @@ import jax.numpy as jnp
 import numpy as np
 
 from .config import config
+
+CHECKOUT_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def use_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache; returns its directory.
+
+    ``JAX_COMPILATION_CACHE_DIR``, when set, is left to JAX (which reads it
+    at start-up) and nothing else is set.  Otherwise the cache goes to the
+    fixed ``<checkout>/.jax_cache``: the directory is part of the cache's
+    key, so one that moved between runs would never hit.  Call it from an
+    entry point before the first compile; importing the package does not.
+    """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    path = os.path.join(CHECKOUT_ROOT, ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 @contextlib.contextmanager
@@ -35,8 +55,8 @@ def timing(label: str, stream=sys.stderr):
 
 @contextlib.contextmanager
 def profile_trace(logdir: str):
-    """jax.profiler trace around a region — the TPU-native replacement for
-    ad-hoc printf profiling; view in TensorBoard/XProf."""
+    """jax.profiler trace around a region — the device-trace replacement
+    for ad-hoc printf profiling; view in TensorBoard/XProf."""
     jax.profiler.start_trace(logdir)
     try:
         yield
@@ -124,7 +144,7 @@ def to_bf16_stochastic(key, x):
     """Stochastically rounded bfloat16 quantization of an f32 array.
 
     For bf16 *storage* of very large inputs (models/streaming upcasts tiles
-    back to the compute dtype on chip — HBM holds half the bytes).
+    back to the compute dtype on the device — HBM holds half the bytes).
     Stochastic rounding keeps the quantization unbiased: E[q(x)] = x, so
     data-sum statistics see noise, not bias, unlike round-to-nearest.
 

@@ -272,9 +272,9 @@ def test_ep_training_separates(rng):
 
 def test_ep_sweep_trace_converges(rng):
     """trace=True returns per-sweep rms site-precision deltas that decay
-    geometrically at the damping rate (the convergence diagnostic; on the
-    TPU bench shape the same trace reaches the f32 noise floor by sweep
-    ~22 — probes/classify_ep_tpu.py)."""
+    geometrically at the damping rate (the convergence diagnostic; at the
+    1M bench shape the same trace reached the f32 noise floor by sweep
+    ~22 — a probe at commit b587de6)."""
     X, z, y, params = _setup(rng, n=40)
     _, v, d = _fitc_prior(SeIso, params, z, X, None)
     ttau, tnu, deltas = ep_sweeps(v, d, y, jnp.ones_like(y), n_sweeps=30,

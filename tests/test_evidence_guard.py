@@ -2,10 +2,10 @@
 
 The quadratic form y'(S + VV')^-1 y = y_is_y - t't is >= 0 mathematically
 (Woodbury projection), but in f32 a near-singular I + G lets t't overshoot
-y_is_y by cancellation, INFLATING the evidence — measured on TPU at the 1M
+y_is_y by cancellation, INFLATING the evidence — measured in f32 at the 1M
 bench shape: a broad-ell L-BFGS probe read mean-NLL -1.55 where its
 synthetic's perfect-fit floor is +0.215, and multi-start selection then
-picked that fictitious basin (driver-captured: BENCH_r04.json fit_restarts
+picked that fictitious basin (BENCH_r04.json at commit b587de6, fit_restarts
 line, 4th probe raw-f32 -1.5509 vs rescored_f64 1.1649).  Two layers of
 defense are tested here:
 

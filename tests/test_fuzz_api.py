@@ -1,4 +1,4 @@
-"""Seeded API fuzz in CI (VERDICT round-2 #6).
+"""Seeded API fuzz in CI (VERDICT.md round-2 #6 at commit b587de6).
 
 A bounded version of probes/fuzz_api.py: each case drives one random
 (family, options, shapes, factorization, trainer, predictor, sampler)

@@ -1,6 +1,6 @@
 """IFT (implicit) vs unrolled gradients for every Laplace-family model.
 
-The round-5 change (models/ift.py, VERDICT r4 #1): hyper gradients of the
+The round-5 change (models/ift.py, VERDICT.md r4 #1 at commit b587de6): hyper gradients of the
 non-Gaussian evidences come from a custom_vjp implicit-function-theorem
 backward (one Woodbury solve + one kernel VJP) instead of jax.grad through
 the remat'ed Newton sweeps.  At a converged mode the two routes are the
@@ -264,7 +264,8 @@ def test_streaming_multiclass_ift_matches_unroll_and_materialized(
     """The streaming softmax fixed point (_stream_softmax_fixed_point)
     must reproduce the unrolled streaming gradient AND the materialized
     softmax-IFT gradient — the last Laplace-family member to move off the
-    unrolled backward (VERDICT r4 #1 / NEXT round-5 note)."""
+    unrolled backward (VERDICT.md r4 #1 / NEXT.md round-5 note, at commit
+    b587de6)."""
     from gpr_tpu.models.classify_multi import multiclass_log_evidence
     from gpr_tpu.models.classify_multi_stream import (
         stream_multiclass_log_evidence,

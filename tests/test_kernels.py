@@ -194,7 +194,7 @@ def test_se_fat_default_params(rng):
 
 def test_sqdist_direct_matches_gemm(rng):
     """config.sqdist_impl='direct' (the accurate-mode elementwise form,
-    probes/r5_accurate_fix.py) must agree with the GEMM expansion to f64
+    probes/r5_accurate_fix.py at commit b587de6) must agree with the GEMM expansion to f64
     roundoff, keep the zero diagonal exactly, and stay differentiable."""
     import jax
 

@@ -130,7 +130,8 @@ def test_matmul_acc_precision_wiring():
 
     The precision attribute is checked in the traced jaxpr (it is a no-op
     numerically on CPU), pinning the accumulation-GEMM knob introduced after
-    probes/r4_tpu_error_split.py measured those GEMMs precision-insensitive.
+    an earlier per-site error split (a probe at commit b587de6)
+    measured those GEMMs precision-insensitive.
     """
     import jax
     from gpr_tpu.config import config

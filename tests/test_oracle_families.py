@@ -1,6 +1,6 @@
 """Formula-independent GRADIENT oracles for the newest families.
 
-VERDICT r3 item 7: the per-family dense oracles certify the EVIDENCE value,
+VERDICT.md r3 item 7 (at commit b587de6): the per-family dense oracles certify the EVIDENCE value,
 and the FD-gradient tests certify AD-vs-FD consistency of the repo's own
 implementation — but a consistently-wrong evidence formula would pass both.
 These tests close the loop: finite-difference an INDEPENDENT numpy/scipy
@@ -364,7 +364,7 @@ def ep_evidence_oracle(K, y, sweeps=300, tol=1e-13):
     models/classify_ep.py: that module runs damped PARALLEL sweeps with
     low-rank Woodbury marginals and a folded evidence form; probit EP's
     fixed point is unique, so the two must agree at convergence —
-    VERDICT r4 #6: a consistently-wrong cavity or moment formula in
+    VERDICT.md r4 #6 (at commit b587de6): a consistently-wrong cavity or moment formula in
     either implementation fails this comparison."""
     n = K.shape[0]
     ttau = np.zeros(n)

@@ -2,7 +2,8 @@
 
 The polish must (a) run the SAME objective at f64 in a child process and
 push the gradient norm below the f32 noise floor, and (b) round-trip the
-hyper vector through the pack unchanged in structure.  VERDICT round-2 #4.
+hyper vector through the pack unchanged in structure.  VERDICT.md round-2 #4 at commit
+b587de6.
 """
 
 import numpy as np
@@ -70,7 +71,7 @@ def test_polish_subsample_consistent(problem):
 
 
 def test_evaluate_f64_nondefault_pack(problem):
-    """ADVICE r4 (medium): evaluate_f64 must rebuild the CHILD pack with the
+    """ADVICE.md r4 (medium, at commit b587de6): evaluate_f64 must rebuild the CHILD pack with the
     parent's layout options.  Before the fix, a pack built with
     learn_inducing=False (or fixed=...) hit a length mismatch in the child,
     the blanket except ranked every candidate inf, and

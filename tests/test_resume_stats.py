@@ -98,7 +98,7 @@ def test_resume_roundtrip(tmp_path, rng):
 
 def test_host_train_resume_reproduces_trajectory(tmp_path, rng):
     """Interrupt the host train() loop, resume from its checkpoint, and land
-    on the SAME final hypers as the uninterrupted run (VERDICT round-1 item:
+    on the SAME final hypers as the uninterrupted run (VERDICT.md round-1 item at commit b587de6:
     resumability for the callback-rich host path, not just device fit())."""
     from gpr_tpu.datasets import gen_data
     from gpr_tpu.optim.train import Bailout, train
